@@ -7,7 +7,7 @@
 // via ctypes when built, with a numpy fallback producing identical bits
 // (parity-tested).
 //
-// Build: make -C csrc   (or python -m pcx.native --build)
+// Built by pcx.native at first use (or: python -m pcx.native --build)
 
 #include <cmath>
 #include <cstdint>

@@ -1,12 +1,13 @@
 """pcx — Photonic Crystals on XLA.
 
-A TPU-native framework for linear Maxwell eigenvalue problems in 3D photonic
-crystals: band-structure computation for periodic dielectric lattices via a
-mimetic finite-difference (Yee) discretization with kernel compensation,
-solved matrix-free in Fourier space with a blocked LOBPCG eigensolver.
+A JAX framework (GPU production path) for linear Maxwell eigenvalue
+problems in 3D photonic crystals: band-structure computation for periodic
+dielectric lattices via a mimetic finite-difference (Yee) discretization
+with kernel compensation, solved matrix-free in Fourier space with a
+blocked LOBPCG eigensolver.
 
 Capability reference: Epsilon-79th/linear-eigenvalue-problems-in-photonic-crystals
-(see SURVEY.md).  The design is TPU-first:
+(see SURVEY.md).  The design:
 
 * the LOBPCG iterate lives in Fourier space, so one batched 3-D FFT pair per
   operator application and a zero-FFT block-diagonal preconditioner

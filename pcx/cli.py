@@ -33,7 +33,7 @@ def _add_common(p):
     p.add_argument("--maxiter", type=int, default=None)
     p.add_argument("--cpu", action="store_true", help="force CPU backend")
     p.add_argument("--single", action="store_true",
-                   help="complex64 (TPU default)")
+                   help="complex64 (the GPU default)")
 
 
 def _setup_backend(args):
@@ -42,11 +42,9 @@ def _setup_backend(args):
         jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
-    platform = jax.devices()[0].platform
-    on_tpu = platform not in ("cpu",)
-    if args.single or on_tpu:
-        return jnp.complex64
-    return jnp.complex128
+    from pcx.config import device_policy, enable_compile_cache
+    enable_compile_cache()
+    return jnp.complex64 if args.single else device_policy().dtype
 
 
 def main(argv=None):

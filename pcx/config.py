@@ -68,11 +68,85 @@ PSEUDOCHIRAL_EPS_LOC = [
 
 # Precision policy note: precision is selected by the ``dtype`` argument
 # threaded through assembly and solvers (complex128 on CPU parity paths,
-# complex64 on TPU production), plus the dedicated mixed-precision variant
-# ``lobpcg_sep_mixedprecision`` (reference scheme, paper_2/lobpcg.py:494-629).
-# Solver tuning knobs travel as validated ``solver_opts`` kwargs
-# (bandstructure._filter_rs_opts raises on unknown keys), so there is no
-# separate config dataclass to drift out of sync.
+# complex64 on the GPU production path, see :func:`device_policy`), plus the
+# dedicated mixed-precision variant ``lobpcg_sep_mixedprecision`` (reference
+# scheme, paper_2/lobpcg.py:494-629).  Solver tuning knobs travel as
+# validated ``solver_opts`` kwargs (bandstructure._filter_rs_opts raises on
+# unknown keys), so there is no separate config dataclass to drift out of
+# sync.
+
+
+@dataclasses.dataclass(frozen=True)
+class DevicePolicy:
+    """What the default device can do, read once per platform.
+
+    ``dtype``: the iterate dtype (the f64-pinned libraries in data/ validate
+    complex64 rows, so accelerators iterate in complex64).
+    ``accelerator``: selects the production path — pair-layout solver with
+    device-built symbols, f64 refine/validation and the segmented solve.
+    """
+
+    dtype: type
+    accelerator: bool
+
+
+def device_policy(platform: str | None = None) -> DevicePolicy:
+    """Policy for ``platform`` (default: ``jax.default_backend()``).  An
+    unknown platform raises instead of inheriting another device's
+    defaults."""
+    if platform is None:
+        import jax
+        platform = jax.default_backend()
+    import jax.numpy as jnp
+    if platform == "cpu":
+        return DevicePolicy(jnp.complex128, accelerator=False)
+    if platform in ("gpu", "cuda"):
+        return DevicePolicy(jnp.complex64, accelerator=True)
+    raise ValueError(f"no device policy for platform {platform!r} "
+                     f"(supported: cpu, gpu)")
+
+
+# Column-sized temporaries one operator apply holds at once (split planes,
+# the complex FFT buffer and its workspace, the penalty term), and the share
+# of device memory an apply may take: the solver state (X, HX, P, HP, W, HW
+# and the stacked Rayleigh-Ritz bases) holds the rest.
+_APPLY_TEMPS = 8
+_APPLY_SHARE = 0.25
+
+
+def apply_chunk_for(n: int, itemsize: int, bytes_limit, m: int = 16) -> int:
+    """Column chunk for the operator apply of an (m, 3, n, n, n) block with
+    ``itemsize``-byte complex entries on a device with ``bytes_limit`` bytes
+    (``device.memory_stats()["bytes_limit"]``); 0 = apply all columns at
+    once.  None (a device that reports no limit) never chunks."""
+    if not bytes_limit:
+        return 0
+    col_bytes = 3 * n**3 * itemsize * _APPLY_TEMPS
+    budget = _APPLY_SHARE * bytes_limit
+    if col_bytes * m <= budget:
+        return 0
+    return max(1, int(budget // col_bytes))
+
+
+def compile_cache_dir(root: str | None = None) -> str:
+    """JAX's persistent compile cache directory: ``JAX_COMPILATION_CACHE_DIR``
+    when set, else ``<checkout>/.jax_cache``."""
+    import os
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    if root is None:
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return os.path.join(root, ".jax_cache")
+
+
+def enable_compile_cache(root: str | None = None) -> str:
+    """Point JAX's persistent compile cache at :func:`compile_cache_dir`;
+    returns the directory."""
+    import jax
+    path = compile_cache_dir(root)
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 @dataclasses.dataclass(frozen=True)

@@ -64,7 +64,7 @@ def pnt_cmp(n: int, lattice: str, pnt_factors: Sequence[float],
     # Same scaling chain as KPointSolver._symbols_np: the unit-cell curl
     # symbol is divided by the lattice constant (spectrum ~ 1/scal^2), so
     # the Gamma shift scales with it (shift/scal^2) — NOT shift_symbol's
-    # alpha-only scal argument (VERDICT round-1 weak item 5).
+    # alpha-only scal argument.
     (shift, rlx), pnt0 = set_relaxation(alpha)
     shift = float(shift) / cfg.scal**2
     m = block_width(nev, rlx)
@@ -178,7 +178,7 @@ def grid_cmp(ns: Sequence[int], lattice: str, alpha=DEFAULT_ALPHA,
 def library_cmp(n: int, lattice: str, alpha=DEFAULT_ALPHA, nev: int = 6,
                 verbose: bool = True):
     """Compare against jax's library LOBPCG on the same operator — the
-    TPU analog of the cupyx-LOBPCG comparison
+    JAX analog of the cupyx-LOBPCG comparison
     (reference: test_cpxlobpcg, paper_1_test.py:257-270)."""
     from jax.experimental.sparse.linalg import lobpcg_standard
 

@@ -2,8 +2,8 @@
 
 The reference represents the material region as sorted int64 index arrays
 cached in .bin files (paper_2/dielectric.py:58-97) and applies the dielectric
-by scatter/gather at those indices.  On TPU we represent the same information
-as dense boolean masks:
+by scatter/gather at those indices.  pcx represents the same information as
+dense boolean masks:
 
 * edge mask:   shape (3, N, N, N)  — one bool per Yee edge DoF,
 * volume mask: shape (N, N, N)     — one bool per cell center,

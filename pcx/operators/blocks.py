@@ -1,10 +1,10 @@
 """Fused 3x3 block-diagonal multiplies on (..., 3, N, N, N) fields.
 
 These replace the reference's two CUDA ElementwiseKernels
-(paper_2/_kernels.py:13-71, wrappers paper_2/pcfft.py:18-43).  On TPU they
+(paper_2/_kernels.py:13-71, wrappers paper_2/pcfft.py:18-43).  Here they
 are pure jnp elementwise expressions — XLA fuses the whole chain (symbol
-multiply + FFT prologue/epilogue) into a handful of VPU loops, so a custom
-Pallas kernel is only warranted if profiling shows XLA failed to fuse.
+multiply + FFT prologue/epilogue) into a handful of loops, so a custom
+kernel is only warranted if a trace shows XLA failed to fuse.
 
 Layout: a block of m field vectors is an array X of shape (m, 3, N, N, N)
 (component axis -4, spatial axes -3..-1).  A "symbol" D is (3, N, N, N) and

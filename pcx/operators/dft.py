@@ -1,21 +1,17 @@
-"""3-D DFT as explicit MXU matmuls with controlled precision.
-
-XLA's TPU FFT lowers to reduced-precision matmul passes; at N^3 ~ 1.7M
-points the relative error reaches ~1e-3..1e-4, which (a) raises the
-attainable LOBPCG residual floor by ~100x and (b) lets numerically-null
-basis columns survive orthogonalization and appear as phantom near-zero
-Ritz values (observed at N=120 complex64 on v5e).
+"""3-D DFT as explicit matmuls with controlled precision.
 
 For the moderate per-axis sizes of this problem (N <= ~200) the DFT along
-each grid axis is a single (N, N) matrix contraction — exactly what the MXU
-is built for.  Applying it at ``Precision.HIGHEST`` (6-pass f32) gives true
-f32 accuracy with error growth ~ sqrt(N) per axis, ~100-1000x better than
-the builtin path, at comparable or better speed: 3 batched GEMMs per
-direction, fully MXU-resident.
+each grid axis is a single (N, N) matrix contraction; at
+``Precision.HIGHEST`` it keeps full f32 (or f64) accuracy.  The solvers use
+the backend FFT (``jnp.fft``, cuFFT on the GPU), which is faster at equal
+accuracy on the GPU (PERF.md); this matmul form serves
+``KPointSolver(fft_mode="matmul")`` on the complex solver, and its
+contraction also applies the trigonometric resampling of the two-grid
+start (:func:`resample3`).
 
 The (N, N) twiddle matrices are k-independent, built once per grid on the
 host, and passed through the jit boundary as ARGUMENTS (230 KB at N=120 —
-never closure constants; see pcx.boundary).
+never closure constants).
 """
 
 from __future__ import annotations
@@ -49,8 +45,7 @@ def dft_mats(n: int, dtype=np.complex64) -> DFTMats:
 def _axis_dft(x: jnp.ndarray, w: jnp.ndarray, precision) -> jnp.ndarray:
     """Contract the -3rd axis of x with w (N_in x N_out), appending the
     transformed axis last: (..., a, b, c) -> (..., b, c, a').  Complex via
-    four real dots (complex dot_general is unimplemented on this backend,
-    and real-split is how the MXU executes it anyway)."""
+    four real dots, each at the stated precision."""
     dims = (((x.ndim - 3,), (0,)), ((), ()))
     xr, xi = x.real, x.imag
     wr, wi = w.real, w.imag

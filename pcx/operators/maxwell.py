@@ -40,9 +40,8 @@ def ama(x: jnp.ndarray, d_a: jnp.ndarray, diel: Callable,
 
     Reference: AMA, paper_2/pcfft.py:130-158 (2 batched 3-D FFTs per call).
     ``dft``: optional explicit twiddle matrices — the transforms then run as
-    full-precision MXU matmuls (pcx.operators.dft) instead of the builtin
-    TPU FFT, whose reduced-precision lowering raises the residual floor
-    ~100x at N^3 ~ 1e6.
+    full-precision matmuls (pcx.operators.dft) instead of the backend FFT
+    (KPointSolver fft_mode="matmul"; slower than cuFFT on the GPU).
     """
     y = a_block(x, -d_a.conj())
     if dft is None:
@@ -234,7 +233,7 @@ def random_block(key, n: int, m: int, dtype=jnp.complex128) -> jnp.ndarray:
     rdt = real_dtype(dtype)
     k1, k2 = jax.random.split(key)
     shape = (m, 3, n, n, n)
-    # lax.complex keeps the width (f32 -> c64): TPU has no complex128.
+    # lax.complex keeps the width (f32 -> c64), no complex128 detour.
     return jax.lax.complex(
         jax.random.uniform(k1, shape, dtype=rdt),
         jax.random.uniform(k2, shape, dtype=rdt)).astype(dtype)

@@ -1,11 +1,12 @@
-"""Real-split ("complex-as-pair") f64 operator path for TPU.
+"""Real-split ("complex-as-pair") Maxwell operator.
 
-complex128 does not exist on TPU (not even inside programs), but f64 REALS
-do (software-emulated).  This module implements the full penalized Maxwell
-operator on pairs ``(re, im)`` of f64 arrays — structurally the same
-arithmetic the MXU would do for a complex type, written out.
+The penalized Maxwell operator on pairs ``(re, im)`` of real arrays (f32
+for the complex64 solve, f64 for its refinement): the layout of the
+pair-layout solver (pcx.solvers.lobpcg_rs), whose Grams and updates run as
+real GEMMs on the split planes.
 
-It exists for the two accuracy-critical moments of a complex64 solve:
+The f64 variant serves the two accuracy-critical moments of a complex64
+solve:
 
 * the final Rayleigh-Ritz refinement of the c64-iterated subspace (Ritz
   values are variationally limited only by the SUBSPACE, not by the c64
@@ -110,36 +111,17 @@ def h_block_p(x: Pair, diag: jnp.ndarray, sdiag: Pair) -> Pair:
     return _stack3((y0, y1, y2))
 
 
-# -- 3-D DFT as f64 matmuls ---------------------------------------------------
+# -- 3-D DFT -------------------------------------------------------------------
 
-def _w2(w: Pair) -> jnp.ndarray:
-    """(N, 2, N, 2) real twiddle for the STACKED one-dot axis DFT:
-    out[k, q] = sum_{j, p} s[j, p] * W2[j, p, k, q], i.e.
-    W2[:, 0, :, 0] = wr, W2[:, 1, :, 0] = -wi (out_re = re*wr - im*wi),
-    W2[:, 0, :, 1] = wi, W2[:, 1, :, 1] = wr (out_im = re*wi + im*wr)."""
-    wr, wi = w
-    row0 = jnp.stack([wr, wi], axis=-1)
-    row1 = jnp.stack([-wi, wr], axis=-1)
-    return jnp.stack([row0, row1], axis=1)
-
-
-def dft3_p(x: Pair, w: Pair,
-           precision=lax.Precision.HIGHEST) -> Pair:
-    """3-D DFT on pairs via ONE real dot_general per axis.
-
-    The four-real-dot complex contraction reads each operand four times and
-    pays a layout normalization per dot (profiled ~3x the traffic roofline
-    per axis).  Stacking (re, im) as a trailing 2-axis and contracting
-    (axis, 2) jointly against the (N, 2, N, 2) real twiddle does the same
-    FLOPs in a single 2N-deep MXU pass per axis, reading the block once."""
-    w2 = _w2(w)
-    s = jnp.stack(x, axis=-1)
-    for _ in range(3):
-        # s (..., a, b, c, 2): contract (a-axis, 2-axis) with w2 (0, 1);
-        # output appends (a', 2) last -> cyclic like the pair version.
-        dims = (((s.ndim - 4, s.ndim - 1), (0, 1)), ((), ()))
-        s = lax.dot_general(s, w2, dims, precision=precision)
-    return (s[..., 0], s[..., 1])
+def fft3_p(x: Pair, inverse: bool = False) -> Pair:
+    """3-D DFT over the last three axes of a pair (``jnp.fft.fftn`` /
+    ``ifftn`` conventions).  The pair is joined into one complex buffer of
+    the matching width (f32 -> complex64, f64 -> complex128), so the
+    transform is the backend's FFT (cuFFT on the GPU) at full precision."""
+    z = lax.complex(x[0], x[1])
+    fn = jnp.fft.ifftn if inverse else jnp.fft.fftn
+    z = fn(z, axes=(-3, -2, -1))
+    return (z.real, z.imag)
 
 
 # -- dielectric apply on pairs ------------------------------------------------
@@ -225,26 +207,19 @@ def _crossdof_p(x: Pair, diag, masks, sten, eps, dtype=jnp.float64) -> Pair:
 
 # -- the penalized operator ---------------------------------------------------
 
-def ama_p(x: Pair, d_a: Pair, diel, w_fwd: Pair, w_inv: Pair,
-          precision=lax.Precision.HIGHEST, dft3_fn=None) -> Pair:
-    """A M A^H on f64 pairs (reference: AMA, pcfft.py:130-158).
-
-    ``dft3_fn(x, w)`` overrides the stacked-dot 3-D DFT (e.g. the Pallas
-    fused DFT-with-transpose, pallas_kernels.dft3_pairs_auto)."""
-    dft = dft3_fn or (lambda v, w: dft3_p(v, w, precision))
+def ama_p(x: Pair, d_a: Pair, diel) -> Pair:
+    """A M A^H on pairs (reference: AMA, pcfft.py:130-158)."""
     y = a_block_p(x, pneg(pconj(d_a)))
-    y = dft(y, w_fwd)
+    y = fft3_p(y)
     y = diel_apply_p(diel, y, dtype=x[0].dtype)
-    y = dft(y, w_inv)
+    y = fft3_p(y, inverse=True)
     return a_block_p(y, d_a)
 
 
 def ama_bb_p(x: Pair, d_a: Pair, b_diag: jnp.ndarray, b_sdiag: Pair,
-             diel, w_fwd: Pair, w_inv: Pair, shift=0.0,
-             precision=lax.Precision.HIGHEST, dft3_fn=None) -> Pair:
-    """A M A^H + pnt B^H B (+ shift) on f64 pairs (b pre-scaled by pnt)."""
-    y = padd(ama_p(x, d_a, diel, w_fwd, w_inv, precision, dft3_fn=dft3_fn),
-             h_block_p(x, b_diag, b_sdiag))
+             diel, shift=0.0) -> Pair:
+    """A M A^H + pnt B^H B (+ shift) on pairs (b pre-scaled by pnt)."""
+    y = padd(ama_p(x, d_a, diel), h_block_p(x, b_diag, b_sdiag))
     return padd(y, pscale(x, shift))
 
 
@@ -260,7 +235,7 @@ def build_curl_p(d1: Pair, d0: Pair, ct: jnp.ndarray,
                  alpha: jnp.ndarray) -> Pair:
     """Curl symbol D_A as an f64 pair (3, N, N, N), built ON DEVICE from the
     1-D stencil symbols (the big symbol arrays are closed-form broadcasts —
-    ship (N,)-sized parts over the slow host link, not 100+ MB products).
+    ship (N,)-sized parts to the device, not 100+ MB products).
 
     d1/d0: (N,) pairs already divided by the lattice constant;
     ct: (3, 3) real; alpha: (3,) real.
@@ -339,10 +314,10 @@ def hermitize_p(m: Pair) -> Pair:
 def pencil_f64_embedding(t: Pair, g: Pair, split: float = 1e-12):
     """theta, C (pair) solving the Hermitian-definite pencil T C = theta G C
     entirely in f64 reals via the standard *-algebra embedding
-    z -> [[Re, -Im], [Im, Re]] (complex128 does not exist on TPU).
+    z -> [[Re, -Im], [Im, Re]] (the pair layout's own small-pencil solve).
 
-    G is whitened by its embedding Loewdin inverse square root (eigh-based —
-    no Cholesky/triangular-solve, which are unverified on this backend);
+    G is whitened by its embedding Loewdin inverse square root (eigh-based,
+    so numerically dead directions deflate instead of breaking a Cholesky);
     a graded diagonal perturbation separates degenerate pairs before the
     every-other-column extraction (same device trick as
     rayleigh_ritz.eigh_f64_embedding).

@@ -1,11 +1,11 @@
 """Pencil-decomposed distributed 3-D FFT over a mesh axis.
 
-The TPU-native replacement for scaling the grid beyond one chip's HBM
+The way to scale the grid beyond one device's memory
 (SURVEY.md section 5.7): the field (..., Nx, Ny, Nz) is sharded over its
 LAST axis; the transform runs
 
     fft over (x, y) locally
-    all_to_all over the mesh axis: reshard z-split -> x-split   (ICI)
+    all_to_all over the mesh axis: reshard z-split -> x-split
     fft over z locally
 
 so each 3-D FFT costs exactly one all_to_all each way.  Designed for use

@@ -21,22 +21,6 @@ K_AXIS = "k"
 GRID_AXIS = "grid"
 
 
-def shard_map(f=None, *, mesh, in_specs, out_specs, check_rep=True):
-    """``jax.shard_map`` across the 0.8 API rename (the experimental
-    module is deprecated; ``check_rep`` became ``check_vma``).  Drop-in
-    for the old call shape — the single import site for the repo."""
-    if f is None:  # partial-application style: shard_map(mesh=...)(body)
-        import functools
-        return functools.partial(shard_map, mesh=mesh, in_specs=in_specs,
-                                 out_specs=out_specs, check_rep=check_rep)
-    if hasattr(jax, "shard_map"):
-        return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, check_vma=check_rep)
-    from jax.experimental.shard_map import shard_map as _sm
-    return _sm(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-               check_rep=check_rep)
-
-
 def make_mesh(n_k: Optional[int] = None, n_grid: Optional[int] = None,
               devices: Optional[Sequence] = None) -> Mesh:
     """Mesh over ("k", "grid").  Defaults: all grid if n_grid given, else
@@ -63,8 +47,7 @@ def init_distributed(coordinator_address: Optional[str] = None,
     ``jax.devices()`` returns the GLOBAL device list (SURVEY.md section 5.8).
 
     Arguments default to the standard cluster env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or an
-    auto-detected TPU pod environment).  A no-op returning 0 when neither
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID).  A no-op returning 0 when neither
     arguments nor env vars request distribution.  On CPU test rigs the
     cross-process collectives run over gloo
     (jax_cpu_collectives_implementation, default on).
@@ -88,17 +71,18 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
 def make_multihost_mesh(n_grid: int = 1) -> Mesh:
     """Global ("k", "grid") mesh after :func:`init_distributed`:
-    process-major device order, so the embarrassingly-parallel k axis maps
-    ACROSS hosts (DCN-tolerant — k-point solves never communicate) while
-    grid sharding (all_to_all in every operator apply) stays INSIDE a
-    host's chips (ICI)."""
+    process-major device order, so the k axis (independent solves that
+    never communicate) spans hosts while grid sharding (an all_to_all in
+    every operator apply) stays among one host's cards, which NVLink joins
+    all to all — within a host the mesh shape follows the algorithm
+    alone."""
     devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
     n_local = len([d for d in devs
                    if d.process_index == jax.process_index()])
     if n_grid > max(n_local, 1):
         raise ValueError(
-            f"n_grid={n_grid} exceeds {n_local} chips per host — grid "
-            f"all_to_alls would cross DCN")
+            f"n_grid={n_grid} exceeds {n_local} cards per host — grid "
+            f"all_to_alls would cross the host network")
     return make_mesh(n_grid=n_grid, devices=devs)
 
 

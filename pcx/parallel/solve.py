@@ -29,7 +29,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-from pcx.parallel.mesh import shard_map
+from jax import shard_map
 
 from pcx.config import MAXITER, TOL
 from pcx.operators.blocks import a_block, h_block
@@ -114,7 +114,7 @@ def solve_kpoint_sharded(
         in_specs=(zspec3, zspec3, zspec3, zspec3, zspec3) + diel_specs
         + (fspec,),
         out_specs=(P(), fspec, P(), P(), P()),
-        check_rep=False,
+        check_vma=False,
     )
     def _run(d_a, b_d, b_s, i_d, i_s, *rest):
         *diel_local, x0 = rest

@@ -97,7 +97,7 @@ def phase_breakdown(solver, alpha, m: Optional[int] = None,
 
 def trace(fn, *args, logdir: str = "/tmp/pcx_trace"):
     """Run ``fn(*args)`` under a jax.profiler trace (Perfetto UI-compatible,
-    the TPU analog of the reference's hand timers)."""
+    the device analog of the reference's hand timers)."""
     with jax.profiler.trace(logdir):
         out = fn(*args)
         jax.block_until_ready(out)

@@ -51,8 +51,8 @@ def recompute(lambdas_in, x=None, a_apply=None, shift: float = 0.0,
 
     Either pass (x, a_apply) to compute the Rayleigh quotients here (eager
     device ops — CPU paths), or ``stats = (lam_re, residual_norms)``
-    precomputed by a jitted real-boundary function (TPU paths, where eager
-    complex ops cannot run).
+    precomputed by a jitted device program (the solver's own stats or
+    refine program).
 
     Reference: recompute_normalize_print, numerical_experiments.py:87-158.
     """

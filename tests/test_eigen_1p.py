@@ -66,7 +66,7 @@ def test_warm_start_reduces_iterations():
 
 
 def test_single_precision_end_to_end():
-    """complex64 (TPU production dtype): must converge and stay spurious-free
+    """complex64 (GPU production dtype): must converge and stay spurious-free
     with omega accuracy well below the 1e-3 gate."""
     r64 = bs.eigen_1p(10, "sc_curv", np.array([np.pi, 0, 0]), nev=6,
                       verbose=False)

@@ -1,232 +1,5 @@
-"""Interpret-mode correctness tests of the Pallas fused multi-Gram kernel
-(TPU microbenchmarks pending hardware; see pcx/operators/pallas_kernels.py)."""
-
-import numpy as np
-import pytest
-
-import jax.numpy as jnp
-
-from pcx.operators.pallas_kernels import fused_gram9
-from pcx.solvers import rayleigh_ritz as rr
-
-
-def test_fused_gram9_matches_blockwise(rng):
-    m, d = 4, 5000
-    def blk():
-        return jnp.asarray((rng.normal(size=(m, d))
-                            + 1j * rng.normal(size=(m, d))).astype(np.complex64))
-    x, w, p, hx, hw, hp = (blk() for _ in range(6))
-    t_re, t_im = fused_gram9(x, w, p, hx, hw, hp, chunk=1024, interpret=True)
-
-    want = np.zeros((3 * m, 3 * m), complex)
-    for i, a in enumerate((x, w, p)):
-        for j, b in enumerate((hx, hw, hp)):
-            re, im = rr.gram_f64(a, b)
-            want[i*m:(i+1)*m, j*m:(j+1)*m] = np.asarray(re) + 1j*np.asarray(im)
-    got = np.asarray(t_re) + 1j * np.asarray(t_im)
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
-
-
-def test_fused_gram9_padding(rng):
-    m, d = 3, 1537  # not a multiple of chunk
-    def blk():
-        return jnp.asarray((rng.normal(size=(m, d))
-                            + 1j * rng.normal(size=(m, d))).astype(np.complex64))
-    x, w, p, hx, hw, hp = (blk() for _ in range(6))
-    t_re, t_im = fused_gram9(x, w, p, hx, hw, hp, chunk=512, interpret=True)
-    re, im = rr.gram_f64(x, hx)
-    np.testing.assert_allclose(np.asarray(t_re)[:m, :m], np.asarray(re),
-                               rtol=1e-5, atol=1e-4)
-
-
-def test_rr_gram_pallas_solver_end_to_end():
-    """solver_opts={'rr_gram': 'pallas'} routes the production solver's
-    Rayleigh-Ritz Gram through the fused Pallas kernel (interpret mode on
-    CPU) and reproduces the XLA-Gram solve."""
-    import numpy as np
-    import jax.numpy as jnp
-    from pcx.bandstructure import KPointSolver
-    from pcx.config import ProblemConfig
-
-    cfg = ProblemConfig(n=8, lattice="sc_curv", nev=4)
-    alpha = np.array([np.pi, 0.2, 0.0])
-    kw = dict(dtype=jnp.complex128, solver_impl="rs", real_boundary=True,
-              refine=False)
-    r_x = KPointSolver(cfg, **kw).solve(alpha, seed=3)
-    r_p = KPointSolver(cfg, solver_opts={"rr_gram": "pallas"},
-                       **kw).solve(alpha, seed=3)
-    assert r_p.status in (1, 5)
-    np.testing.assert_allclose(r_p.omega_re, r_x.omega_re, atol=5e-9)
-
-
-def test_fused_resid_precond_matches_unfused(rng):
-    """fused_resid_precond (one-HBM-pass residual + colnorms + Hermitian
-    preconditioner) must reproduce the unfused chain lam*x-hx ->
-    colnorms_p -> rs.h_block_p in interpret mode."""
-    from pcx.operators.pallas_kernels import fused_resid_precond
-    from pcx.operators import rs
-    from pcx.solvers import rayleigh_ritz as rr
-
-    m, n = 5, 6
-    d = n ** 3
-    shp = (m, 3, n, n, n)
-    mk = lambda: jnp.asarray(rng.normal(size=shp), jnp.float32)
-    x = (mk(), mk())
-    hx = (mk(), mk())
-    lam = jnp.asarray(rng.normal(size=(m,)), jnp.float32)
-
-    sd = lambda: jnp.asarray(rng.normal(size=(3, n, n, n)), jnp.float32)
-    inv_diag = sd()
-    inv_sd = (sd(), sd())
-
-    lam_col = lam.reshape(m, 1, 1, 1, 1)
-    r = (lam_col * x[0] - hx[0], lam_col * x[1] - hx[1])
-    res_want = rr.colnorms_p((r[0].reshape(m, -1), r[1].reshape(m, -1)))
-    w_want = rs.h_block_p(r, inv_diag, inv_sd)
-
-    flat3 = lambda a: a.reshape(m, 3, d)
-    (wr, wi), ss = fused_resid_precond(
-        (flat3(x[0]), flat3(x[1])), (flat3(hx[0]), flat3(hx[1])), lam,
-        inv_diag.reshape(3, d), (inv_sd[0].reshape(3, d),
-                                 inv_sd[1].reshape(3, d)),
-        chunk=128, interpret=True)
-
-    np.testing.assert_allclose(np.asarray(jnp.sqrt(ss)),
-                               np.asarray(res_want), rtol=2e-5)
-    np.testing.assert_allclose(np.asarray(wr), np.asarray(
-        w_want[0].reshape(m, 3, d)), rtol=2e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(wi), np.asarray(
-        w_want[1].reshape(m, 3, d)), rtol=2e-5, atol=1e-5)
-
-
-def test_fused_resid_precond_cm_layout_matches_mc(rng):
-    """layout='cm' (component-major (3, m, Dp) HBM staging, the N=150
-    OOM fix) must be numerically identical to the validated 'mc' layout."""
-    from pcx.operators.pallas_kernels import fused_resid_precond
-
-    m, three, d = 5, 3, 1537  # not a multiple of chunk
-    mk = lambda: jnp.asarray(rng.normal(size=(m, three, d)), jnp.float32)
-    x = (mk(), mk())
-    hx = (mk(), mk())
-    lam = jnp.asarray(rng.normal(size=(m,)), jnp.float32)
-    sd = lambda: jnp.asarray(rng.normal(size=(three, d)), jnp.float32)
-    inv_diag = sd()
-    inv_sd = (sd(), sd())
-
-    args = (x, hx, lam, inv_diag, inv_sd)
-    (ar, ai), ss_a = fused_resid_precond(*args, chunk=512, interpret=True,
-                                         layout="mc")
-    (br, bi), ss_b = fused_resid_precond(*args, chunk=512, interpret=True,
-                                         layout="cm")
-    np.testing.assert_allclose(np.asarray(br), np.asarray(ar), rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(bi), np.asarray(ai), rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(ss_b), np.asarray(ss_a), rtol=1e-6)
-
-
-def test_rp_fuse_pallas_cm_layout_solve_matches_default():
-    """KPointSolver with solver_opts={'rp_fuse': 'pallas', 'rp_layout':
-    'cm'} (the N=150 memory-layout lever) reproduces the default rs
-    solve's frequencies end-to-end."""
-    from pcx.bandstructure import KPointSolver
-    from pcx.config import ProblemConfig
-
-    cfg = ProblemConfig(n=8, lattice="sc_curv", nev=4)
-    kw = dict(dtype=jnp.complex64, solver_impl="rs", real_boundary=True,
-              refine=False, tol=1e-5, maxiter=300)
-    alpha = np.array([np.pi, 0.0, 0.0])
-    r0 = KPointSolver(cfg, **kw).solve(alpha, seed=4)
-    r1 = KPointSolver(cfg, solver_opts={"rp_fuse": "pallas",
-                                        "rp_layout": "cm"},
-                      **kw).solve(alpha, seed=4)
-    assert r1.status in (1, 5)
-    np.testing.assert_allclose(r1.omega_re, r0.omega_re, atol=5e-5)
-
-
-def test_rp_fuse_pallas_solve_matches_default():
-    """KPointSolver with solver_opts={'rp_fuse': 'pallas'} (fused
-    residual+precond Pallas pass, interpret mode on CPU) reproduces the
-    default rs solve's frequencies."""
-    from pcx.bandstructure import KPointSolver
-    from pcx.config import ProblemConfig
-
-    cfg = ProblemConfig(n=8, lattice="sc_curv", nev=4)
-    kw = dict(dtype=jnp.complex64, solver_impl="rs", real_boundary=True,
-              refine=False, tol=1e-5, maxiter=300)
-    alpha = np.array([np.pi, 0.0, 0.0])
-    r0 = KPointSolver(cfg, **kw).solve(alpha, seed=4)
-    r1 = KPointSolver(cfg, solver_opts={"rp_fuse": "pallas"},
-                      **kw).solve(alpha, seed=4)
-    assert r1.status in (1, 5)
-    np.testing.assert_allclose(r1.omega_re, r0.omega_re, atol=5e-5)
-
-    # segmented driver composes with the fused kernel
-    r2 = KPointSolver(cfg, solver_opts={"rp_fuse": "pallas"},
-                      segment_iters=6, **kw).solve(alpha, seed=4)
-    np.testing.assert_allclose(r2.omega_re, r0.omega_re, atol=5e-5)
-
-
-def test_dft3_pairs_fused_matches_stacked_dot(rng):
-    """The fused DFT-with-transpose axis kernel (one HBM pass per axis,
-    transpose ridden on the blocked DMA) must reproduce rs.dft3_p."""
-    from pcx.operators import dft as dft_mod
-    from pcx.operators import rs
-    from pcx.operators.pallas_kernels import dft3_pairs_fused
-
-    # n=10/12 exercise the uneven (cdiv-padded) brick grid the TPU
-    # lowering needs for N % 8 != 0 (N=100/150 production grids).
-    for n, lead in ((8, (2, 3)), (10, (4,)), (12, (2,))):
-        mats = dft_mod.dft_mats(n, np.complex128)
-        for w_np in (mats.fwd, mats.inv):
-            w = (jnp.asarray(w_np.real, jnp.float32),
-                 jnp.asarray(w_np.imag, jnp.float32))
-            x = (rng.standard_normal(lead + (n, n, n))
-                 + 1j * rng.standard_normal(lead + (n, n, n)))
-            xp = (jnp.asarray(x.real, jnp.float32),
-                  jnp.asarray(x.imag, jnp.float32))
-            ref = rs.dft3_p(xp, w)
-            got = dft3_pairs_fused(xp, w, interpret=True)
-            scale = float(np.abs(np.asarray(ref[0])).max())
-            for i in (0, 1):
-                np.testing.assert_allclose(np.asarray(got[i]),
-                                           np.asarray(ref[i]),
-                                           atol=5e-6 * scale)
-
-
-def test_dft_fuse_pallas_solve_matches_default():
-    """KPointSolver with solver_opts={'dft_fuse': 'pallas'} (fused
-    DFT-with-transpose, interpret mode on CPU) reproduces the default rs
-    solve's frequencies, including under the segmented driver."""
-    from pcx.bandstructure import KPointSolver
-    from pcx.config import ProblemConfig
-
-    cfg = ProblemConfig(n=8, lattice="sc_curv", nev=4)
-    kw = dict(dtype=jnp.complex64, solver_impl="rs", real_boundary=True,
-              refine=False, tol=1e-5, maxiter=300)
-    alpha = np.array([np.pi, 0.0, 0.0])
-    r0 = KPointSolver(cfg, **kw).solve(alpha, seed=4)
-    r1 = KPointSolver(cfg, solver_opts={"dft_fuse": "pallas"},
-                      **kw).solve(alpha, seed=4)
-    assert r1.status in (1, 5)
-    np.testing.assert_allclose(r1.omega_re, r0.omega_re, atol=5e-5)
-
-    r2 = KPointSolver(cfg, solver_opts={"dft_fuse": "pallas"},
-                      segment_iters=6, **kw).solve(alpha, seed=4)
-    np.testing.assert_allclose(r2.omega_re, r0.omega_re, atol=5e-5)
-
-
-def test_dft_fuse_rejects_f64():
-    """The fused DFT computes in f32; the f64/complex128 rs path must
-    refuse it loudly instead of silently degrading the refine precision."""
-    import pytest
-    from pcx.bandstructure import KPointSolver
-    from pcx.config import ProblemConfig
-
-    cfg = ProblemConfig(n=8, lattice="sc_curv", nev=4)
-    s = KPointSolver(cfg, dtype=jnp.complex128, solver_impl="rs",
-                     real_boundary=True, refine=False,
-                     solver_opts={"dft_fuse": "pallas"})
-    with pytest.raises(ValueError, match="complex64"):
-        s.solve(np.array([np.pi, 0.0, 0.0]), seed=0)
+"""Rayleigh-Ritz Gram variants of the pair-layout solver (rr_gram) and
+the Gram chunking rule."""
 
 
 def test_rr_gram_xla9_solver_end_to_end():

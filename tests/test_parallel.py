@@ -7,7 +7,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
-from pcx.parallel.mesh import shard_map
+from jax import shard_map
 from functools import partial
 
 from pcx.parallel import fft as pfft
@@ -31,9 +31,9 @@ def test_pencil_fft_roundtrip_and_value(mesh4):
     xspec = P(None, None, GRID_AXIS, None, None)
 
     fwd = partial(shard_map, mesh=mesh4, in_specs=(fspec,), out_specs=xspec,
-                  check_rep=False)(lambda v: pfft.pencil_fftn(v, GRID_AXIS))
+                  check_vma=False)(lambda v: pfft.pencil_fftn(v, GRID_AXIS))
     inv = partial(shard_map, mesh=mesh4, in_specs=(xspec,), out_specs=fspec,
-                  check_rep=False)(lambda v: pfft.pencil_ifftn(v, GRID_AXIS))
+                  check_vma=False)(lambda v: pfft.pencil_ifftn(v, GRID_AXIS))
 
     y = fwd(x)
     want = np.fft.fftn(np.asarray(x), axes=(-3, -2, -1))
@@ -144,7 +144,7 @@ def test_sharded_crossdof_apply_matches(mesh4):
 
     @partial(shard_map, mesh=mesh4,
              in_specs=(xspecf, xspec3, xspec3), out_specs=xspecf,
-             check_rep=False)
+             check_vma=False)
     def apply_sharded(xloc, diag_loc, masks_loc):
         fn = make_sharded_crossdof(diag_loc, masks_loc, sten, e3, e4, e5,
                                    n_shards=2)
@@ -167,9 +167,9 @@ def test_pencil_fft_four_way():
     fspec = P(None, None, None, None, GRID_AXIS)
     xspec = P(None, None, GRID_AXIS, None, None)
     fwd = partial(shard_map, mesh=mesh, in_specs=(fspec,), out_specs=xspec,
-                  check_rep=False)(lambda v: pfft.pencil_fftn(v, GRID_AXIS))
+                  check_vma=False)(lambda v: pfft.pencil_fftn(v, GRID_AXIS))
     inv = partial(shard_map, mesh=mesh, in_specs=(xspec,), out_specs=fspec,
-                  check_rep=False)(lambda v: pfft.pencil_ifftn(v, GRID_AXIS))
+                  check_vma=False)(lambda v: pfft.pencil_ifftn(v, GRID_AXIS))
     y = fwd(x)
     np.testing.assert_allclose(np.asarray(y),
                                np.fft.fftn(np.asarray(x), axes=(-3, -2, -1)),
@@ -186,7 +186,7 @@ def test_sharded_roll_matches_roll():
     spec = P(GRID_AXIS, None)
     for shift in (-2, -1, 1, 2):
         f = partial(shard_map, mesh=mesh, in_specs=(spec,), out_specs=spec,
-                    check_rep=False)(
+                    check_vma=False)(
             lambda v: pfft.sharded_roll(v, shift, 0, GRID_AXIS, 8))
         np.testing.assert_allclose(np.asarray(f(x)),
                                    np.roll(np.asarray(x), shift, axis=0))
@@ -196,7 +196,7 @@ def test_sharded_roll_matches_roll():
 def test_sharded_solve_crossdof(mesh4):
     """End-to-end grid-sharded solve with the cross-DoF dielectric (halo
     exchange inside the solver loop) matches the single-device solve at an
-    N large enough for multi-plane halos (VERDICT round-1 item 6)."""
+    N large enough for multi-plane halos."""
     from pcx.bandstructure import KPointSolver
     from pcx.config import ProblemConfig
     from pcx.operators import maxwell
@@ -234,7 +234,7 @@ def test_sharded_solve_crossdof(mesh4):
 def test_multihost_two_process_cpu(tmp_path):
     """Real two-process jax.distributed bring-up on CPU (gloo collectives):
     init_distributed + make_multihost_mesh + a cross-host psum + host_slice
-    partitioning (SURVEY.md section 5.8 / VERDICT round-1 item 8)."""
+    partitioning (SURVEY.md section 5.8)."""
     import subprocess, sys, textwrap, socket
 
     with socket.socket() as s:
@@ -258,7 +258,7 @@ def test_multihost_two_process_cpu(tmp_path):
         mesh = make_multihost_mesh(n_grid=1)
         assert mesh.shape[K_AXIS] == 4
         from jax.sharding import PartitionSpec as P
-        from pcx.parallel.mesh import shard_map
+        from jax import shard_map
         from functools import partial
         f = partial(shard_map, mesh=mesh, in_specs=P(K_AXIS),
                     out_specs=P())(lambda v: jax.lax.psum(v.sum(), K_AXIS))

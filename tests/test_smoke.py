@@ -1,6 +1,5 @@
 """Smoke tier: a <2-minute pre-flight (`pytest -m smoke`) so hardware
-campaigns can gate on a cheap sanity pass instead of the ~30-min fast suite
-(VERDICT round-2 item 8).
+campaigns can gate on a cheap sanity pass instead of the ~30-min fast suite.
 
 One tiny end-to-end solve per production-critical path (complex softlock,
 pair-layout rs, Davidson, each dielectric type) plus the checkpoint/resume

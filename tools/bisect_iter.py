@@ -21,27 +21,17 @@ import jax.numpy as jnp
 
 from pcx import boundary
 from pcx.bandstructure import KPointSolver
-from pcx.config import ProblemConfig
+from pcx.config import ProblemConfig, enable_compile_cache
 from pcx.operators import rs
 from pcx.solvers import rayleigh_ritz as rr
 
 
-@jax.jit
-def _probe(leaves):
-    return sum(jnp.sum(l.ravel()[:8].astype(jnp.float32)) for l in leaves)
-
-
-def _force(out):
-    float(_probe([l for l in jax.tree_util.tree_leaves(out)
-                  if hasattr(l, "ravel")]))
-
-
 def timeit(name, fn, *args, reps=3):
-    _force(fn(*args))
+    jax.block_until_ready(fn(*args))
     ts = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        _force(fn(*args))
+        jax.block_until_ready(fn(*args))
         ts.append(time.perf_counter() - t0)
     print(f"{name:40s} {min(ts)*1e3:9.2f} ms", flush=True)
     return min(ts)
@@ -53,6 +43,7 @@ def main():
     ap.add_argument("--m", type=int, default=16)
     args = ap.parse_args()
     n, m = args.n, args.m
+    enable_compile_cache()
 
     cfg = ProblemConfig(n=n, lattice="sc_curv", diel_type="chiral", nev=10)
     solver = KPointSolver(cfg, dtype=jnp.complex64)
@@ -72,8 +63,6 @@ def main():
     b_sd = pair(b.sdiag)
     inv_diag = put(np.asarray(inv.diag))
     inv_sd = pair(inv.sdiag)
-    wfm = pair(solver.dft.fwd)
-    wim = pair(solver.dft.inv)
     diel = solver.diel
     sh = np.float32(shift)
     shape5 = (m, 3, n, n, n)
@@ -91,7 +80,7 @@ def main():
     unflat = lambda a: (a[0].reshape(shape5), a[1].reshape(shape5))
 
     def h_func(v):
-        return rs.ama_bb_p(v, d_ap, b_diag, b_sd, diel, wfm, wim, shift=sh)
+        return rs.ama_bb_p(v, d_ap, b_diag, b_sd, diel, shift=sh)
 
     def make_iter(do_h=True, do_svqb_w=True, do_svqb_p=True, do_eigh=True,
                   do_updates=True, do_precond=True):

@@ -4,7 +4,7 @@ commit it under data/ for the f64 pin tests.
 
 The gyroid golden gate (tests/test_bandstructure.py::golden_threshold) is
 loosened to 1.1e-2 because the COMMITTED REFERENCE's doublet bands are
-under-converged (BENCH_NOTES round-4 adjudication); pcx regressions on
+under-converged; pcx regressions on
 gyroids are instead caught by pinning the c64 library row against a
 converged f64 solve.  This tool writes those pins:
 
@@ -15,7 +15,7 @@ Output: data/{lattice}_n{N}_k{K}_f64.json with enough metadata for
 tests/test_bandstructure.py::test_library_rows_match_f64_ground_truth to
 discover it (lattice, n, diel, eps_opt, k, alpha_over_pi, omega_f64).
 
-CPU-only (complex128 does not exist on TPU); N=120 takes ~80 min/point.
+Runs on the CPU; N=120 takes ~80 min/point there.
 """
 
 import argparse

@@ -113,11 +113,12 @@ def main():
         "Auto-generated by `tools/library_status.py` — every unique "
         "(dielectric type, lattice, N, eps preset) configuration committed "
         "in the reference's band libraries "
-        "(`/root/reference/paper_2/output/*/bandgap_*.json`), against the "
-        "pcx reproduction under `output_c64/`.  |Δω| is the max/mean "
+        "(the reference checkout's `paper_2/output/*/bandgap_*.json`), "
+        "against the pcx reproduction under `output_c64/`.  |Δω| is the "
+        "max/mean "
         "absolute frequency deviation over k-points valid in both "
         "libraries; ~3e-3 is the expected complex64-solve + "
-        "discretization-difference scale at N=120 (BENCH_NOTES.md).",
+        "discretization-difference scale at N=120.",
         "",
         "| Diel type | Lattice | N | eps | k-pts | Status | computed | "
         "failed | max dw | mean dw |",
@@ -139,7 +140,7 @@ def main():
         f"**{n_done} / {len(configs)} configurations complete** "
         "(0 failed rows, golden-diffed).",
         "",
-        "Reproduction protocol: `tools/run_sweep.py` on a single TPU chip "
+        "Reproduction protocol: `tools/run_sweep.py` on one accelerator "
         "with the validated fast-lever stack (`lam_tol=2e-6 "
         "floor_patience=3 col_patience=3 w_cap=auto`); every completed "
         "library is golden-diffed (`tools/golden_diff.py`) and pinned by "

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""Per-phase TPU microbenchmark of the PAIR-LAYOUT (rs) LOBPCG iteration.
+"""Per-phase microbenchmark of the PAIR-LAYOUT (rs) LOBPCG iteration.
 
 Times each phase of solvers.lobpcg_rs as its own jitted program on real
-pair inputs, to attribute the measured per-iteration wall time
-(264 ms at N=96, 487 ms at N=120).
+pair inputs, to attribute the per-iteration wall time of a solve on the
+default device.
 
 Usage: python tools/profile_rs.py [--n 96] [--m 16] [--reps 5]
 """
@@ -21,6 +21,10 @@ jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 
+from pcx.config import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
+
 from pcx import boundary
 from pcx.bandstructure import KPointSolver
 from pcx.config import ProblemConfig
@@ -28,23 +32,12 @@ from pcx.operators import rs
 from pcx.solvers import rayleigh_ritz as rr
 
 
-@jax.jit
-def _probe(leaves):
-    return sum(jnp.sum(l.ravel()[:8].astype(jnp.float32)) for l in leaves)
-
-
-def _force(out):
-    leaves = [l for l in jax.tree_util.tree_leaves(out)
-              if hasattr(l, "ravel")]
-    float(_probe(leaves))
-
-
 def timeit(name, fn, *args, reps=5):
-    _force(fn(*args))
+    jax.block_until_ready(fn(*args))
     ts = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        _force(fn(*args))
+        jax.block_until_ready(fn(*args))
         ts.append(time.perf_counter() - t0)
     best = min(ts)
     print(f"{name:44s} {best*1e3:9.2f} ms", flush=True)
@@ -78,8 +71,6 @@ def main():
     b_sd = pair(b.sdiag)
     inv_diag = put(np.asarray(inv.diag))
     inv_sd = pair(inv.sdiag)
-    wfm = pair(solver.dft.fwd)
-    wim = pair(solver.dft.inv)
     diel = solver.diel
     sh = np.float32(shift)
     D = 3 * n**3
@@ -107,7 +98,7 @@ def main():
           f"block={m*D*4/1e6:.0f} MB/part", flush=True)
 
     def h_one(v):
-        return rs.ama_bb_p(v, d_ap, b_diag, b_sd, diel, wfm, wim, shift=sh)
+        return rs.ama_bb_p(v, d_ap, b_diag, b_sd, diel, shift=sh)
 
     if c and m > c:
         def h_func(v):
@@ -123,8 +114,8 @@ def main():
     timeit("p_func (h_block_p)",
            jax.jit(lambda v: rs.h_block_p(v, inv_diag, inv_sd)), x5,
            reps=args.reps)
-    timeit("dft3_p fwd alone",
-           jax.jit(lambda v: rs.dft3_p(v, wfm)), x5, reps=args.reps)
+    timeit("fft3_p fwd alone",
+           jax.jit(lambda v: rs.fft3_p(v)), x5, reps=args.reps)
 
     ones_m = jnp.ones((m,), jnp.float32)
     noise_floor = 30.0 * (D ** 0.5) * float(jnp.finfo(jnp.float32).eps)

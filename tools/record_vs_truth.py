@@ -24,8 +24,6 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(REPO, ".jax_cache"))
 
 
 def main():
@@ -46,16 +44,12 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.environ["JAX_COMPILATION_CACHE_DIR"])
-    except Exception:
-        pass
     import jax.numpy as jnp
     import numpy as np
     from pcx import lattices
     from pcx.bandstructure import KPointSolver
-    from pcx.config import ProblemConfig
+    from pcx.config import ProblemConfig, enable_compile_cache
+    enable_compile_cache(REPO)
     from pcx.io import BandLibrary
     from pcx.solvers.lobpcg import Status
 
